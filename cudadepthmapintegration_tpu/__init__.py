@@ -1,10 +1,10 @@
-"""cudadepthmapintegration_tpu — TPU-native volumetric depth-map fusion.
+"""cudadepthmapintegration_tpu — volumetric depth-map fusion in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A JAX/XLA/Pallas re-design of the capabilities of
 ``bastienjacquet/CudaDepthMapIntegration`` (Kitware, 2016): truncated
 signed-distance ray-potential fusion of calibrated depth maps into a dense
 voxel grid, isosurface extraction (marching cubes), and mesh coloration —
-single chip to multi-host TPU meshes.
+one GPU or a z-slab-sharded mesh of several.
 """
 
 __version__ = "0.1.0"

@@ -30,7 +30,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="(required) File which contains all vti paths")
     p.add_argument("--verbose", action="store_true",
                    help="(optional) Display debug information")
-    # TPU-native extensions:
+    # Extensions (not in the reference CLI):
     p.add_argument("--zTest", action="store_true",
                    help="Reject samples from cameras behind the vertex "
                         "(the reference never does; opt-in fix)")
@@ -40,16 +40,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "pixel by more than this tolerance (world units; "
                         "the reference samples through occluders). Use at "
                         "least the voxel size — mesh vertices sit up to "
-                        "half a voxel off the true surface. Forces the "
-                        "xla backend.")
+                        "half a voxel off the true surface.")
     p.add_argument("--dtype", type=str, default="float32",
                    choices=["float32", "float64"],
                    help="Projection compute dtype (default float32)")
-    p.add_argument("--backend", type=str, default="auto",
-                   choices=["auto", "xla", "pallas"],
-                   help="Gather backend: portable XLA or the Pallas TPU "
-                        "kernel (kernels/coloration_pallas.py); auto = "
-                        "pallas on TPU at float32, xla otherwise")
     p.add_argument("--compatIntMean", action="store_true",
                    help="Reference-parity int mean numerator "
                         "(MeshColoration.cxx:176-178)")
@@ -68,7 +62,6 @@ def main(argv: list[str] | None = None) -> int:
         krtd_list=args.krtd,
         z_test=args.zTest,
         dtype=args.dtype,
-        backend=args.backend,
         compat_int_mean=args.compatIntMean,
         occlusion_tol=args.occlusionTol,
     )

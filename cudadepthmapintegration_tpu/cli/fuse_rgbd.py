@@ -82,7 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--occlusionTol", type=float, default=None,
                    help="With --colorize: reject samples occluded in their "
                         "own frame (camera z > frame depth + tol; use at "
-                        "least --voxelSize). Forces the xla gather path.")
+                        "least --voxelSize).")
     p.add_argument("--onlineColor", action="store_true",
                    help="Accumulate vertex colors ONLINE in a per-block "
                         "color pool during fusion (single pass; works with "

@@ -37,7 +37,7 @@ __all__ = ["build_parser", "main"]
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cudareconstruction",
-        description="TPU-native depth-map fusion (TSDF ray potential) "
+        description="Depth-map fusion (TSDF ray potential) "
         "+ isosurface extraction.",
     )
     p.add_argument("--gridDims", type=int, nargs="+", default=None,
@@ -84,24 +84,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Write a summary file on dataFolder")
     p.add_argument("--forceCubicVoxel", action="store_true",
                    help="Set all voxel spacings to the min of the three")
-    # TPU-native extensions (not in the reference CLI):
+    # Extensions (not in the reference CLI):
     p.add_argument("--dtype", type=str, default="float32",
                    choices=["float32", "float64"],
                    help="Fusion compute dtype (default float32)")
-    p.add_argument("--backend", type=str, default="xla",
-                   choices=["xla", "pallas"],
-                   help="Integrator backend: xla (portable) or pallas "
-                        "(TPU kernel fast path; float32 only)")
     p.add_argument("--viewBatch", type=int, default=8,
-                   help="Views fused per volume pass (default 8)")
+                   help="Views fused per volume pass on the XLA path "
+                        "(default 8); the GPU kernel fuses a whole stream "
+                        "batch per pass")
     p.add_argument("--streamBatch", type=int, default=32,
                    help="Views staged per host->device transfer (default 32)")
-    p.add_argument("--groupFill", type=int, default=None,
-                   help="pallas backend: buffer views per orientation "
-                        "group across stream batches and fuse only full "
-                        "chunks of this many real views (multiple of 8; "
-                        "0 disables, default 32) — removes the dummy-view "
-                        "padding tax of small stream batches")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="Fault-tolerant fusion: checkpoint view-range units "
                         "to this file; re-running with the same path "
@@ -112,7 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "the NSight counterpart, reference README:43-50)")
     p.add_argument("--metrics", type=str, default=None,
                    help="Write a JSON metrics report (voxel updates/s, "
-                        "views/s, HBM roofline fraction) to this path")
+                        "views/s, memory-bandwidth roofline fraction) to "
+                        "this path")
     p.add_argument("--mhaPath", type=str, default="meta_image_volume.mha",
                    help="Path of the always-written meta-image volume; "
                         "'' disables (reference hardcodes cwd)")
@@ -175,10 +168,8 @@ def main(argv: list[str] | None = None) -> int:
         contour_value=args.contour,
         force_cubic_voxel=args.forceCubicVoxel,
         dtype=args.dtype,
-        backend=args.backend,
         view_batch=args.viewBatch,
         stream_batch=args.streamBatch,
-        group_fill=args.groupFill,
         write_mha_path=args.mhaPath or None,
         checkpoint_path=args.checkpoint,
     )
@@ -211,13 +202,16 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     if args.metrics:
+        import jax
+
         from ..utils.profiling import FusionMetrics
 
-        m = FusionMetrics(seconds=result.execution_time)
-        # True per-backend sweep count, reported by the integrator itself
-        # (xla: one volume RMW per view_batch chunk; pallas: one per
-        # orientation group per staged batch) — an estimate from
-        # views/stream_batch understates volume traffic ~4x at defaults.
+        dev = jax.devices()[0]
+        m = FusionMetrics(
+            seconds=result.execution_time,
+            device_kind=None if dev.platform == "cpu" else dev.device_kind,
+        )
+        # Sweep count reported by the integrator itself.
         sweeps = max(1, result.volume_sweeps)
         m.add_fusion(result.grid.num_cells, result.views_fused,
                      passes=sweeps)

@@ -59,7 +59,7 @@ class Camera:
 
         The reference applies the three transforms per voxel per thread
         (``CudaReconstruction.cu:166-176``); composing them once on the host in
-        float64 is both faster and more accurate on TPU.
+        float64 is both faster and more accurate.
         """
         p = self.k4 @ self.rt
         if grid_matrix is not None:

@@ -1,6 +1,6 @@
 """Per-view data object: depth map + calibration (+ optional color / cost).
 
-TPU-native equivalent of ``ReconstructionData``
+Equivalent of ``ReconstructionData``
 (``Sources/ReconstructionData.{h,cxx}``): holds one view's depth image, the
 camera, and the auxiliary "Best Cost Values" / "Color" channels from the VTI
 point data (``Sources/ReconstructionData.cxx:92-116,138-167``).

@@ -1,15 +1,1 @@
-"""Pallas TPU kernels for the hot ops."""
-
-from .integrate_pallas import (
-    integrate_views_oriented,
-    pallas_integrate,
-    pad_volume,
-    unpad_volume,
-)
-
-__all__ = [
-    "integrate_views_oriented",
-    "pallas_integrate",
-    "pad_volume",
-    "unpad_volume",
-]
+"""Hand-written GPU kernels for the hot ops."""

@@ -2,7 +2,7 @@
 
 Literal (but vectorized) re-statement of the CUDA kernel semantics
 (``Reconstruction/CudaReconstruction.cu:158-212``), used as the ground truth
-for every JAX/Pallas parity test (the reference computes in double:
+for every integrator parity test (the reference computes in double:
 ``TypeCompute = double``, ``CudaReconstruction.cu:51``, and instantiates
 ``ProcessDepthMap<double>`` at ``vtkCudaReconstructionFilter.cxx:175``).
 

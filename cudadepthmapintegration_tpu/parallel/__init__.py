@@ -1,7 +1,6 @@
 """Multi-device parallelism: mesh, sharded fusion, halo exchange, coloration."""
 
 from . import distributed
-from .frustum import slab_view_mask, view_intersects_slab
 from .halo import exchange_z_halo, sharded_cell_to_point
 from .mesh import make_mesh
 from .rig import (
@@ -27,7 +26,5 @@ __all__ = [
     "sharded_cell_to_point",
     "sharded_colorize_points",
     "sharded_extract_isosurface",
-    "slab_view_mask",
     "unpermute_volume",
-    "view_intersects_slab",
 ]

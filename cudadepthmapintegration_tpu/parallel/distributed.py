@@ -1,17 +1,17 @@
-"""Multi-host (pod-slice) runtime initialization and topology helpers.
+"""Multi-process runtime initialization and topology helpers.
 
-On a TPU pod slice every host runs the same program; ``jax.distributed``
-wires the hosts into one JAX runtime whose global device list spans the
-slice. The fusion framework then needs nothing else: the (z, v) mesh from
-:func:`parallel.mesh.make_mesh` spans all global devices, z-slab shardings
-ride ICI, and view streaming is per-host disk -> its own chips (DCN never
-carries the grid — SURVEY.md section 5 "Distributed communication backend").
+With several hosts every process runs the same program; ``jax.distributed``
+wires them into one JAX runtime whose global device list spans all of
+them. The fusion framework then needs nothing else: the (z, v) mesh from
+:func:`parallel.mesh.make_mesh` spans all global devices, and view
+streaming is per-host disk -> its own devices (the network never carries
+the grid — SURVEY.md section 5 "Distributed communication backend").
 
-Typical pod-slice entrypoint:
+Typical multi-process entrypoint:
 
     from cudadepthmapintegration_tpu.parallel import distributed, make_mesh
 
-    distributed.initialize()            # no-op on single-host
+    distributed.initialize("host0:1234", num_processes=2, process_id=rank)
     mesh = make_mesh()                  # all global devices on z
     views = my_shard_of_views()         # each host reads its own files
     ...ShardedTSDFIntegrator(grid, params, mesh).integrate(views)...
@@ -22,8 +22,6 @@ unfinished units (idempotent sum).
 """
 
 from __future__ import annotations
-
-import os
 
 import jax
 
@@ -41,20 +39,16 @@ def initialize(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> None:
-    """Initialize jax.distributed when running under a multi-host launcher.
+    """Initialize jax.distributed for a multi-process launch.
 
-    With no arguments, relies on the TPU environment's auto-detection
-    (GKE/Cloud TPU metadata). Explicit arguments support custom launchers.
-    Safe to call on a single host (no-op when nothing to join).
+    Nothing on a GPU host tells JAX of a cluster, so the launcher passes
+    ``coordinator_address`` (``host:port``), ``num_processes`` and
+    ``process_id``. Without a coordinator address this is a no-op, so it
+    is safe to call on a single host.
     """
     if jax.process_count() > 1:
         return  # already initialized
-    env_says_multihost = (
-        coordinator_address is not None
-        or os.environ.get("COORDINATOR_ADDRESS")
-        or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS")
-    )
-    if not env_says_multihost:
+    if coordinator_address is None:
         return
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
@@ -86,7 +80,7 @@ def all_sum_volume(volume):
     the elementwise sum of all replicas (order-independent addition,
     ``CudaReconstruction.cu:211``). Single-process: identity.
 
-    Uses ``process_allgather`` (DCN) — transfer is P x volume once per
+    Uses ``process_allgather`` — transfer is P x volume once per
     run, negligible next to fusion; the z-SHARDED mode
     (parallel/sharded_integrate.py) needs no volume reduction at all and
     is the preferred layout at scale.

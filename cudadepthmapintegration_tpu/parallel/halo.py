@@ -4,8 +4,8 @@ Marching cubes needs point-scalar values, and a grid point's value averages
 the up-to-8 cells around it (``vtkCellDataToPointData`` semantics, used at
 ``Reconstruction/main.cxx:150-155``). Under z-slab sharding each shard needs
 its z-neighbors' boundary cell plane — a classic 1-deep halo exchange,
-implemented with ``jax.lax.ppermute`` over the ``z`` mesh axis (ICI
-neighbor traffic only: one (cy, cx) plane per shard per direction).
+implemented with ``jax.lax.ppermute`` over the ``z`` mesh axis (neighbor
+traffic only: one (cy, cx) plane per shard per direction).
 """
 
 from __future__ import annotations

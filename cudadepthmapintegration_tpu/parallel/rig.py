@@ -1,15 +1,9 @@
 """Rig-aware shard-axis selection.
 
-The z-slab decomposition (`ShardedTSDFIntegrator`) pins the Pallas
-kernel's grid-step (k) axis to the sharded volume axis. Measured on
-hardware (docs/SCALING.md): when cameras look ACROSS the sharded axis
-the pinned k costs nothing, but a rig looking ALONG it (top-down ring
-over a z-sharded grid) loses ~22% — `best_axis_permutation` wants the
-viewing direction on the SUBLANE axis, which the sharding forbids.
-
-The fix is geometric, not kernel work: relabel the grid's axes so grid-z
-becomes the axis the cameras look along LEAST, fuse on the relabeled
-grid, and transpose the fused volume back. The relabeling is an exact
+The z-slab decomposition (`ShardedTSDFIntegrator`) always cuts the
+volume's z axis. ``shard_axis='auto'`` relabels the grid's axes so
+grid-z becomes the axis the cameras look along LEAST, fuses on the relabeled
+grid, and transposes the fused volume back. The relabeling is an exact
 permutation (the grid matrix absorbs a 0/1 column permutation; origins
 and spacings are reordered), so the fused volume is bit-identical to
 fusing on the original grid — only the memory layout (and therefore the
@@ -52,7 +46,7 @@ __all__ = [
 def _axis_scores(grid: VoxelGrid, cameras) -> np.ndarray:
     """Summed |view-direction| component per grid axis over the rig
     (row 2 of ``RT @ grid_matrix`` is the camera's viewing direction in
-    grid coordinates, cf. ``kernels.integrate_pallas.best_axis_permutation``)."""
+    grid coordinates)."""
     score = np.zeros(3, dtype=np.float64)
     for cam in cameras:
         rot = (cam.rt @ grid.matrix)[:3, :3]

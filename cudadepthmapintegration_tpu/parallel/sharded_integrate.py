@@ -15,9 +15,7 @@ Two complementary strategies (composable on a (z, v) mesh):
   ``CudaReconstruction.cu:211``). Used when the grid is small and views are
   many.
 
-Both paths reuse the single-device XLA integrator body; on TPU pods the
-z-axis also maps to multi-host slices (shardings ride ICI, views stream over
-DCN).
+Both paths reuse the single-device XLA integrator body.
 """
 
 from __future__ import annotations
@@ -33,7 +31,6 @@ from ..core.grid import VoxelGrid
 from ..core.ray_potential import RayPotential
 from ..core.view import DepthMapView
 from ..ops.integrate import projection_tables, _view_contribution
-from .frustum import slab_view_mask
 
 __all__ = ["ShardedTSDFIntegrator"]
 
@@ -83,15 +80,10 @@ class ShardedTSDFIntegrator:
     ):
         """``slab_interleave=True`` assigns z slices to shards round-robin
         (shard d owns original slices d, d+nz, d+2*nz, ...) instead of one
-        contiguous slab each. For rigs whose coverage concentrates on few
-        contiguous slabs (e.g. an equatorial orbit under frustum culling)
-        this balances per-shard work at the cost of making per-shard
-        frustum culling useless (each shard's slices span the whole grid).
-        Implemented as an EXACT z-permutation: the volume lives permuted
-        on device, tz tables are permuted at staging, and :meth:`result`
-        unpermutes — bit-identical to contiguous slabs (each z slice is
-        fused independently; the kernel's k loop has no cross-slice
-        state)."""
+        contiguous slab each. Implemented as an EXACT z-permutation: the
+        volume lives permuted on device, tz tables are permuted at staging,
+        and :meth:`result` unpermutes — bit-identical to contiguous slabs
+        (each z slice is fused independently)."""
         self.grid = grid
         self.params = params.validate()
         self.mesh = mesh
@@ -114,19 +106,14 @@ class ShardedTSDFIntegrator:
         self.volume = None
         self.views_fused = 0
         # Per-shard volume read+write sweeps (for --metrics roofline):
-        # the scan-based xla paths RMW the slab once per view; the pallas
-        # path once per orientation group per batch.
+        # the scan RMWs the slab once per view.
         self.volume_sweeps = 0
-        # Jitted shard_map steps of the Pallas path, keyed by the per-group
-        # layout signature + tunables — reused across view batches.
-        self._pallas_steps: dict = {}
         self._zeros = None  # cached jitted sharded-zeros initializer
 
     def reset(self, initial: np.ndarray | None = None):
         if initial is None:
             # Fill on device (sharded): a host np.zeros would ship the whole
-            # volume through the host link on every reset (64 MB at 512^3
-            # slab scale — seconds on a thin control plane, and pure waste).
+            # volume through the host link on every reset.
             if self._zeros is None:
                 shape, dtype = self.grid.volume_shape, self.dtype
                 self._zeros = jax.jit(
@@ -191,7 +178,7 @@ class ShardedTSDFIntegrator:
         """Fuse with views sharded over the ``v`` mesh axis.
 
         Each v-shard integrates its local views into a partial z-slab and the
-        partials are reduced with ONE ``psum`` over ICI — valid because
+        partials are reduced with ONE ``psum`` — valid because
         fusion is an associative/commutative sum over views
         (``CudaReconstruction.cu:211``). Composes with z sharding: the grid
         stays z-sharded, so the psum payload is a slab, not the full grid.
@@ -248,269 +235,6 @@ class ShardedTSDFIntegrator:
         )
         self.views_fused += len(views)
         self.volume_sweeps += len(views) // nv
-        return self
-
-    def integrate_pallas(
-        self,
-        views: list[DepthMapView],
-        threshold_best_cost: float | None = None,
-        **kernel_kw,
-    ):
-        """Spatially-sharded fusion with the Pallas kernel per z-shard:
-        :meth:`stage_pallas_views` + :meth:`run_staged_pallas`."""
-        staged = self.stage_pallas_views(
-            views, threshold_best_cost, **kernel_kw
-        )
-        self.run_staged_pallas(staged)
-        self.views_fused += len(views)
-        self.volume_sweeps += len(staged[1])
-        return self
-
-    def stage_pallas_views(
-        self,
-        views: list[DepthMapView],
-        threshold_best_cost: float | None = None,
-        windows: tuple[int, int] = (3, 2),
-        subtile_rows: int = 16,
-        mode: str = "rowsel",
-        window_rows: int = 32,
-        rowsel_passes: int = 2,
-        z_block: int = 1,
-        frustum_cull: bool = False,
-        skip_dead: bool = False,
-    ):
-        """Stage one view batch for spatially-sharded Pallas fusion:
-        returns ``(jitted_step, device_args)`` — ONE donated shard_map
-        dispatch chaining every orientation group (tables/depths uploaded
-        here; the jitted step is cached across batches).
-
-        Each device runs the TPU integrate kernel on its own z-slab
-        (`shard_map`; no collectives — same ownership argument as
-        :meth:`integrate`). The z-dependent table is sharded with the
-        volume; everything else is replicated.
-
-        Orientation grouping UNDER sharding: the k (grid-step) axis is
-        pinned to z by the sharding, but the lane/sublane axes are still
-        free — views are grouped by whichever of the two remaining
-        permutations (sub=y, lane=x) / (sub=x, lane=y) better aligns the
-        lane axis with image-u (the same score as
-        ``best_axis_permutation`` restricted to k=z), and each group runs
-        with a per-shard yx transpose (local to every device, no
-        communication). Rigs looking straight down z remain the worst
-        case — neither free axis tracks the viewing direction — which is
-        why docs/SCALING.md says to shard the axis cameras look along
-        least; the grouping here recovers the in-plane component.
-        """
-        if self.volume is None:
-            self.reset()
-        if np.dtype(self.dtype) != np.float32:
-            raise ValueError("pallas path requires float32")
-        if threshold_best_cost is not None:
-            views = [v.thresholded(threshold_best_cost) for v in views]
-        from ..kernels.integrate_pallas import pallas_integrate
-
-        h, w = views[0].depth.shape
-        t = projection_tables(self.grid, views, np.float32)
-        depths_all = np.stack([v.depth for v in views]).astype(np.float32)
-        # Pre-pad depth maps on the host (pallas_integrate would otherwise
-        # np.pad a traced array inside shard_map). -1 padding preserves
-        # semantics: a projection landing in the pad reads the invalid
-        # sentinel and is rejected, exactly like the bounds test would.
-        if mode not in ("rowsel", "rowsel3", "rowselh", "rowsel3h",
-                        "windows"):
-            # rowselm/rowsel3m host-side miss re-dispatch doesn't compose
-            # with a shard_map-embedded call (the miss check needs a host
-            # sync per step). rowsel3 is fine: its 3-plane split runs on
-            # device inside the traced chain (split_depth_planes is
-            # jit-safe for jax arrays), bit-identical to the plain path.
-            # The HBM band-sweep modes compose too (no host sync; band
-            # padding happens inside the traced call) — and oversized maps
-            # reach them automatically via _vmem_safe_mode.
-            raise ValueError(
-                f"sharded integrate supports mode 'rowsel', 'rowsel3', "
-                f"'rowselh', 'rowsel3h' or 'windows', got {mode!r}"
-            )
-        min_h = window_rows if mode.startswith("rowsel") else 8
-        ph, pw = max(min_h - h, (-h) % 8), (-w) % 128
-        if ph or pw:
-            depths_all = np.pad(
-                depths_all, ((0, 0), (0, ph), (0, pw)), constant_values=-1.0
-            )
-        mesh = self.mesh
-        cz, cy, cx = self.grid.volume_shape
-        params = self.params
-        nz = mesh.shape["z"]
-        cull_mask = None
-        if frustum_cull:
-            if self._z_order is not None:
-                raise ValueError(
-                    "frustum_cull does not compose with slab_interleave "
-                    "(interleaved shards span the whole grid)"
-                )
-            # Cameras only — conservative; thresholding doesn't move them.
-            cull_mask = slab_view_mask(self.grid, views, nz, int(h), int(w))
-        kernel_kw = dict(
-            windows=windows, subtile_rows=subtile_rows,
-            mode=mode, window_rows=window_rows, rowsel_passes=rowsel_passes,
-            z_block=z_block,
-            # Dead-unit-skipping kernel variant (docs/KERNEL.md round 4):
-            # static opt-in here (one uniform shard_map program, no host
-            # sampling inside the traced chain). Worth it when shards see
-            # frustum-PARTIAL views — close-up/walkthrough rigs, where the
-            # plain-plan auto lever measured +64% — and composes with
-            # frustum_cull (slab-level) by skipping at subtile level.
-            # Bit-identical either way.
-            skip_dead=bool(skip_dead),
-        )
-
-        # Group views over the two free-axis permutations: k=z fixed;
-        # score = u_dir[lane] + view_dir[sub] (cf. best_axis_permutation).
-        groups: dict[bool, list[int]] = {}
-        for i, view in enumerate(views):
-            rot = (view.camera.rt @ self.grid.matrix)[:3, :3]
-            u_dir, view_dir = np.abs(rot[0]), np.abs(rot[2])
-            score_yx = u_dir[0] + view_dir[1]  # sub=y, lane=x (canonical)
-            score_xy = u_dir[1] + view_dir[0]  # sub=x, lane=y (transposed)
-            groups.setdefault(bool(score_xy > score_yx), []).append(i)
-
-        def pad_axis_table(tab, n_new):
-            if n_new == tab.shape[2]:
-                return tab
-            pad = np.zeros((tab.shape[0], 4, n_new - tab.shape[2]), np.float32)
-            pad[:, 2, :] = -1e9  # poisoned hom-z: padded voxels never valid
-            return np.concatenate([tab, pad], axis=2)
-
-        repl = NamedSharding(mesh, P())
-        tz_sh = NamedSharding(mesh, P(None, None, "z"))
-        tz_all = self._permute_tz(t.tz)
-        m_slab = cz // nz
-        metas = []
-        group_args = []
-        for transposed, idxs in sorted(groups.items()):
-            sel = np.asarray(idxs)
-            # Lane/sublane cell extents for this group's layout.
-            cyl, cxl = (cx, cy) if transposed else (cy, cx)
-            py, px = (-cyl) % subtile_rows, (-cxl) % 128
-            tab_sub = t.tx if transposed else t.ty
-            tab_lane = t.ty if transposed else t.tx
-            if cull_mask is None:
-                tx_g = pad_axis_table(tab_lane[sel], cxl + px)
-                ty_g = pad_axis_table(tab_sub[sel], cyl + py)
-                metas.append((transposed, py, px, None))
-                group_args.append((
-                    jax.device_put(tz_all[sel], tz_sh),
-                    jax.device_put(tx_g, repl),
-                    jax.device_put(ty_g, repl),
-                    jax.device_put(t.tc[sel], repl),
-                    jax.device_put(depths_all[sel], repl),
-                ))
-                continue
-            # Frustum-culled: per-shard view subsets, dummy-padded to the
-            # group max (multiple of 8 to bound jit shape variants), every
-            # table stacked on a leading shard axis and z-sharded so each
-            # device receives only its own rows.
-            from ..kernels.integrate_pallas import _pad_views_invalid
-
-            tx_all = pad_axis_table(tab_lane, cxl + px)
-            ty_all = pad_axis_table(tab_sub, cyl + py)
-            shard_sels = [sel[cull_mask[s_, sel]] for s_ in range(nz)]
-            gmax = max(8, -(-max(len(x) for x in shard_sels) // 8) * 8)
-            txs, tys, tzs, tcs, dss = [], [], [], [], []
-            for s_, ssel in enumerate(shard_sels):
-                tx_s, ty_s, tz_s, tc_s, d_s = _pad_views_invalid(
-                    tx_all[ssel], ty_all[ssel],
-                    tz_all[ssel][:, :, s_ * m_slab : (s_ + 1) * m_slab],
-                    t.tc[ssel], depths_all[ssel], gmax,
-                )
-                txs.append(tx_s); tys.append(ty_s); tzs.append(tz_s)
-                tcs.append(tc_s); dss.append(d_s)
-            z_lead = lambda a: jax.device_put(
-                np.stack(a), NamedSharding(
-                    mesh, P(*(("z",) + (None,) * (a[0].ndim)))
-                )
-            )
-            metas.append((transposed, py, px, gmax))
-            group_args.append((
-                z_lead(tzs), z_lead(txs), z_lead(tys), z_lead(tcs),
-                z_lead(dss),
-            ))
-
-        # ONE donated jit dispatch chaining every group (mirrors
-        # OrientedFusionPlan._build_runner: the per-group eager step version
-        # re-entered jit per group, held two full volume buffers alive, and
-        # cost ~1 s/batch of pure dispatch overhead on a high-RTT control
-        # plane). Cached per (group-layout signature, tunables) — the chain
-        # re-traces only when the rig's orientation split changes.
-        key = (tuple(metas), tuple(sorted(kernel_kw.items())))
-        step = self._pallas_steps.get(key)
-        if step is None:
-
-            def chain(vol_shard, groups_arrs):
-                for (transposed, py, px, gmax), arrs in zip(
-                    metas, groups_arrs
-                ):
-                    tz_, tx_, ty_, tc_, depths_ = arrs
-                    if gmax is not None:
-                        # Culled path: drop the leading per-shard axis.
-                        tz_, tx_, ty_, tc_, depths_ = (
-                            tz_[0], tx_[0], ty_[0], tc_[0], depths_[0]
-                        )
-                    v = vol_shard
-                    if transposed:
-                        v = jnp.transpose(v, (0, 2, 1))
-                    if py or px:
-                        v = jnp.pad(v, ((0, 0), (0, py), (0, px)))
-                    out = pallas_integrate(
-                        v, tx_, ty_, tz_, tc_, depths_,
-                        params.thick, params.rho, params.eta, params.delta,
-                        **kernel_kw,
-                    )
-                    out = out[:, : (cx if transposed else cy),
-                              : (cy if transposed else cx)]
-                    if transposed:
-                        out = jnp.transpose(out, (0, 2, 1))
-                    vol_shard = out
-                return vol_shard
-
-            step = jax.jit(
-                jax.shard_map(
-                    chain,
-                    mesh=mesh,
-                    in_specs=(
-                        P("z", None, None),
-                        tuple(
-                            (P(None, None, "z"), P(), P(), P(), P())
-                            if gmax is None
-                            else (
-                                P("z", None, None, None),
-                                P("z", None, None, None),
-                                P("z", None, None, None),
-                                P("z", None, None),
-                                P("z", None, None, None),
-                            )
-                            for (_, _, _, gmax) in metas
-                        ),
-                    ),
-                    out_specs=P("z", None, None),
-                    # pallas_call's out_shape carries no vma annotation;
-                    # the body is communication-free, so skip the vma
-                    # check.
-                    check_vma=False,
-                ),
-                donate_argnums=(0,),
-            )
-            self._pallas_steps[key] = step
-        return step, tuple(group_args)
-
-    def run_staged_pallas(self, staged) -> "ShardedTSDFIntegrator":
-        """Execute a pre-staged batch (from :meth:`stage_pallas_views`)
-        against the current volume — the device-resident steady state
-        (benchmarking; or re-fusing the same batch into several volumes).
-        The current volume buffer is DONATED to the step."""
-        if self.volume is None:
-            self.reset()
-        step, args = staged
-        self.volume = step(self.volume, args)
         return self
 
     def result(self) -> np.ndarray:

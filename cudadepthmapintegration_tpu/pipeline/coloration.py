@@ -23,8 +23,6 @@ class ColorationConfig:
     krtd_list: str  # file listing camera paths
     z_test: bool = False  # opt-in visibility fix (reference has none)
     dtype: str = "float32"
-    # 'xla' (portable gather) or 'pallas' (TPU packed-RGB rowsel kernel).
-    backend: str = "auto"
     # Reference numerator parity (MeshColoration.cxx:176-178).
     compat_int_mean: bool = False
     # Opt-in per-view occlusion test (world units; reference has none).
@@ -50,7 +48,6 @@ class ColorationPipeline:
                 views,
                 z_test=self.config.z_test,
                 dtype=self.config.dtype,
-                backend=self.config.backend,
                 compat_int_mean=self.config.compat_int_mean,
                 occlusion_tol=self.config.occlusion_tol,
             )

@@ -41,7 +41,6 @@ class ReconstructionFilter:
         self._vti_path: str | None = None
         self._grid_matrix = np.eye(4)
         self._grid: VoxelGrid | None = None
-        self._backend = "xla"
         self._volume: np.ndarray | None = None
         self._execution_time = -1.0
 
@@ -90,10 +89,6 @@ class ReconstructionFilter:
         )
         return self
 
-    def set_backend(self, backend: str):
-        self._backend = backend
-        return self
-
     # -- execution -----------------------------------------------------------
 
     def update(self) -> "ReconstructionFilter":
@@ -129,7 +124,7 @@ class ReconstructionFilter:
         )
         dataset = DepthMapDataset(self._vti_path, self._krtd_path)
         t0 = time.perf_counter()
-        integrator = TSDFIntegrator(grid, params, backend=self._backend).reset()
+        integrator = TSDFIntegrator(grid, params).reset()
         from .streaming import batched, prefetch_views
 
         for batch in batched(prefetch_views(dataset), 32):

@@ -7,11 +7,10 @@ Equivalent of ``vtkCudaReconstructionFilter`` + the CLI pipeline in
   cell->point -> contour at `contour_value` -> grid-matrix transform ->
   .vtp mesh -> .vts structured grid -> optional summary file.
 
-Differences by design (TPU-first):
+Differences by design:
   * views are fused in device-resident batches instead of one H2D copy +
     kernel launch per view (``CudaReconstruction.cu:343-365``);
-  * the volume stays on device between phases; only the final mesh/volume
-    leave the chip;
+  * the volume stays on device during fusion;
   * the execution-time bookkeeping mirrors ``GetExecutionTime``
     (``vtkCudaReconstructionFilter.cxx:101-148``).
 """
@@ -57,12 +56,8 @@ class ReconstructionConfig:
     contour_value: float = 1.0
     force_cubic_voxel: bool = False
     dtype: str = "float32"
-    backend: str = "xla"  # 'xla' or 'pallas' (TPU kernel fast path)
     view_batch: int = 8
     stream_batch: int = 32  # views loaded/staged per host->device transfer
-    # pallas backend: cross-batch orientation-group filling (None -> the
-    # integrator default, 32; 0 disables). See TSDFIntegrator.group_fill.
-    group_fill: int | None = None
     write_mha_path: str | None = "meta_image_volume.mha"
     # Fault-tolerant mode: fuse as retried, checkpointed view-range units
     # (pipeline/runner.py); re-running with the same path RESUMES. The
@@ -116,8 +111,8 @@ class ReconstructionResult:
     execution_time: float  # fusion seconds (GetExecutionTime parity)
     total_time: float
     views_fused: int
-    # True volume read+write sweeps performed by the integrator (for the
-    # --metrics roofline; backend-dependent — see TSDFIntegrator).
+    # Volume read+write sweeps performed by the integrator (for the
+    # --metrics roofline).
     volume_sweeps: int = 0
 
 
@@ -134,8 +129,7 @@ class ReconstructionPipeline:
 
         `shard_axis`: 'z' (default) slices the grid's native z axis;
         'auto' relabels the grid so the slab sharding cuts the axis the
-        cameras look along LEAST (docs/SCALING.md: rigs looking along the
-        sharded axis lose ~22% of kernel rate). The relabeling is an exact
+        cameras look along LEAST. The relabeling is an exact
         permutation — results are bit-identical, returned in the canonical
         layout either way. Requires a mesh and a materializable view
         sequence. Composes with `checkpoint_path`: checkpoints always
@@ -210,9 +204,6 @@ class ReconstructionPipeline:
             sharded = ShardedTSDFIntegrator(
                 fuse_grid, params, self.mesh, dtype=np.dtype(cfg.dtype)
             ).reset(init)
-            if cfg.backend == "pallas":
-                # Route batches through the per-shard Pallas kernel.
-                sharded.integrate = sharded.integrate_pallas  # type: ignore[assignment]
             if perm != (0, 1, 2):
                 raw_result = sharded.result
                 sharded.result = (  # type: ignore[assignment]
@@ -227,8 +218,6 @@ class ReconstructionPipeline:
                 params,
                 dtype=np.dtype(cfg.dtype),
                 view_batch=cfg.view_batch,
-                backend=cfg.backend,
-                group_fill=cfg.group_fill,
             ).reset(initial)
 
         if cfg.checkpoint_path is not None:

@@ -49,7 +49,7 @@ __all__ = [
 # fault of the device or I/O path. Retrying these cannot succeed — it
 # only buries the traceback under max_retries sleep-and-retry cycles —
 # so the runner checkpoints completed progress and re-raises on the
-# FIRST attempt. Everything else (device resets, tunnel drops, OSError,
+# FIRST attempt. Everything else (device resets, link drops, OSError,
 # RuntimeError from a lost buffer) stays retried: fusion units are
 # idempotent, so a transient retry is always safe.
 NON_TRANSIENT_EXCEPTIONS = (

@@ -61,3 +61,4 @@ class Log:
         finally:
             dt = time.perf_counter() - t0
             self.timings[name] = self.timings.get(name, 0.0) + dt
+            self.info(f"** {name}: {dt:.3f} s")

@@ -2,13 +2,13 @@
 
 The reference's only instrumentation is CPU ``clock()`` wall time
 (``vtkCudaReconstructionFilter.cxx:101-148``) plus NSight debugging docs
-(``README:43-50``). TPU-native equivalents:
+(``README:43-50``). Equivalents here:
 
 * :func:`trace` — context manager around ``jax.profiler`` producing a
   TensorBoard-loadable trace directory (the XProf/NSight counterpart);
 * :class:`FusionMetrics` — structured counters for the quantities
   BASELINE.json tracks (voxel updates/s, views/s, bytes moved, roofline
-  fraction vs. peak HBM bandwidth).
+  fraction vs. the device's peak memory bandwidth).
 """
 
 from __future__ import annotations
@@ -20,15 +20,24 @@ import time
 
 import jax
 
-__all__ = ["trace", "FusionMetrics", "device_memory_stats"]
+__all__ = ["trace", "FusionMetrics", "device_memory_stats", "hbm_peak"]
 
-# Peak HBM bandwidth per chip (bytes/s) for roofline fractions.
+# Published peak device-memory bandwidth (bytes/s), keyed by
+# ``jax.Device.device_kind``. Source: NVIDIA H100 data sheet (SXM5: 80 GB
+# HBM3 at 3.35 TB/s), at the card's full 700 W power limit.
 HBM_PEAK = {
-    "v5e": 819e9,
-    "v5p": 2765e9,
-    "v4": 1228e9,
-    "v6e": 1640e9,
+    "NVIDIA H100 80GB HBM3": 3.35e12,
 }
+
+
+def hbm_peak(device_kind: str) -> float:
+    """Peak memory bandwidth of `device_kind`; an unknown device raises."""
+    try:
+        return HBM_PEAK[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no peak bandwidth recorded for device kind {device_kind!r}"
+        ) from None
 
 
 @contextlib.contextmanager
@@ -62,7 +71,9 @@ class FusionMetrics:
     views: int = 0
     seconds: float = 0.0
     bytes_volume_traffic: int = 0
-    chip: str = "v5e"
+    # jax device_kind the run was timed on; None when it ran on no
+    # accelerator, which has no roofline.
+    device_kind: str | None = None
     _t0: float | None = None
 
     def start(self):
@@ -93,15 +104,19 @@ class FusionMetrics:
         return self.views / self.seconds if self.seconds > 0 else 0.0
 
     @property
-    def hbm_roofline_fraction(self) -> float:
-        """Volume-traffic HBM fraction (the kernel's min-traffic bound)."""
+    def hbm_roofline_fraction(self) -> float | None:
+        """Volume-traffic share of peak memory bandwidth (the fusion's
+        min-traffic bound); None without a device kind."""
+        if self.device_kind is None:
+            return None
         if self.seconds <= 0:
             return 0.0
-        peak = HBM_PEAK.get(self.chip, 819e9)
+        peak = hbm_peak(self.device_kind)
         return (self.bytes_volume_traffic / self.seconds) / peak
 
     def report(self) -> dict:
         return {
+            "device_kind": self.device_kind,
             "voxels": self.voxels,
             "views": self.views,
             "seconds": round(self.seconds, 6),

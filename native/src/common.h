@@ -1,6 +1,6 @@
 // Shared declarations for the cdmi native runtime library.
 //
-// TPU-native framework's host-side C++ components — the counterparts of the
+// The framework's host-side C++ components — the counterparts of the
 // reference's native layer (ReconstructionLib + CUDA host code). Exposed with
 // a plain C ABI and consumed from Python via ctypes (no pybind11).
 #pragma once

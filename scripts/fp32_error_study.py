@@ -1,15 +1,14 @@
 """fp32 accumulation error growth vs view count (capstone-depth evidence).
 
 The reference computes in float64 throughout (``CudaReconstruction.cu:51``,
-``vtkCudaReconstructionFilter.cxx:175``); the TPU kernel accumulates in
-float32. This script measures how the fp32 error grows with fused view
+``vtkCudaReconstructionFilter.cxx:175``); the float32 integrators
+accumulate in float32. This script measures how the fp32 error grows with fused view
 count against the fp64 NumPy oracle, at capstone depth (1000 views), and
 reports max/median absolute error plus the error relative to the
 accumulated magnitude — the measured epsilon behind docs/PARITY.md's
 "within-epsilon" claim.
 
-Runs on CPU by default (same fp32 accumulation class as the TPU kernel);
-``--tpu`` additionally runs the real Pallas kernel on the attached chip.
+Runs on the CPU (the same fp32 accumulation class as the integrators).
 
     JAX_PLATFORMS=cpu python scripts/fp32_error_study.py
 """
@@ -41,7 +40,7 @@ def build(n_views, width=256, height=192):
 
 def fp32_oracle(grid, views, params):
     """The oracle algorithm with fp32 arithmetic + fp32 accumulation — the
-    precision class of the TPU kernel, with no gather/rounding differences
+    precision class of the integrators, with no gather/rounding differences
     (isolates ACCUMULATION error from projection rounding flips)."""
     vol = np.zeros(grid.volume_shape, np.float32)
     for v in views:
@@ -54,8 +53,6 @@ def fp32_oracle(grid, views, params):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tpu", action="store_true",
-                    help="also run the real Pallas kernel on the device")
     ap.add_argument("--counts", type=int, nargs="*",
                     default=[8, 64, 256, 1000])
     args = ap.parse_args()
@@ -77,23 +74,6 @@ def main():
         rows.append((n, err.max(), np.median(err), err.max() / scale))
         print(f"{n:6d} {err.max():12.3e} {np.median(err):12.3e} "
               f"{err.max() / scale:18.3e}  fp32 accumulate", flush=True)
-
-        if args.tpu:
-            from cudadepthmapintegration_tpu.kernels.integrate_pallas import (
-                integrate_views_oriented,
-            )
-
-            got_k = np.asarray(
-                integrate_views_oriented(
-                    np.zeros(grid.volume_shape, np.float32),
-                    grid, views, params,
-                )
-            )
-            err_k = np.abs(got_k - exp)
-            flips = (err_k > 1e-3).mean()
-            print(f"{n:6d} {err_k.max():12.3e} {np.median(err_k):12.3e} "
-                  f"{err_k.max() / scale:18.3e}  pallas kernel "
-                  f"(flip-frac {flips:.1e})", flush=True)
 
     # Theoretical bound for context: sequential fp32 summation error grows
     # ~ n * eps * max|partial sum|; the measured growth should sit well

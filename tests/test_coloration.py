@@ -216,11 +216,3 @@ def test_occlusion_tol_rejects_behind_camera_vertices():
     _, _, count = colorize_points(pts, [view], occlusion_tol=0.1)
     np.testing.assert_array_equal(count, [1, 0])
 
-
-def test_occlusion_tol_rejects_pallas_backend():
-    import pytest
-
-    view = _frontal_view()
-    with pytest.raises(ValueError, match="occlusion_tol"):
-        colorize_points(np.zeros((2, 3)), [view], occlusion_tol=0.1,
-                        backend="pallas")

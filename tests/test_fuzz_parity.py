@@ -1,10 +1,9 @@
 """Randomized-geometry parity fuzzing: random cameras, grids, and ray
-parameters — every backend must agree with the fp64 oracle."""
+parameters — every integrator must agree with the fp64 oracle."""
 
 import numpy as np
 import pytest
 
-import cudadepthmapintegration_tpu.kernels.integrate_pallas as KP
 from cudadepthmapintegration_tpu import native
 from cudadepthmapintegration_tpu.core import (
     Camera,
@@ -14,8 +13,6 @@ from cudadepthmapintegration_tpu.core import (
 )
 from cudadepthmapintegration_tpu.io import read_vts, write_vts
 from cudadepthmapintegration_tpu.ops import TSDFIntegrator, integrate_views_oracle
-
-KP.INTERPRET = True
 
 
 def random_scene(seed):
@@ -71,14 +68,42 @@ def test_xla_fp64_matches_oracle_fuzzed(seed):
     np.testing.assert_allclose(got, exp, atol=1e-9)
 
 
-@pytest.mark.parametrize("seed", [11, 12, 13])
-def test_pallas_matches_oracle_fuzzed(seed):
+@pytest.mark.parametrize("seed", range(11, 21))
+def test_xla_fp32_matches_oracle_fuzzed(seed):
     grid, views, params = random_scene(seed)
-    vol = np.zeros(grid.volume_shape, np.float32)
-    got = np.asarray(KP.integrate_views_oriented(vol, grid, views, params))
-    exp = integrate_views_oracle(grid, views, params).astype(np.float32)
+    got = (
+        TSDFIntegrator(grid, params, dtype=np.float32)
+        .reset()
+        .integrate(views)
+        .result()
+    )
+    exp = integrate_views_oracle(grid, views, params)
     # fp32 rounding can flip a borderline pixel; allow a tiny fraction.
     mismatch = (np.abs(got - exp) > 1e-3).mean()
+    assert mismatch < 5e-3
+
+
+@pytest.mark.parametrize("seed", range(31, 41))
+def test_kernel_matches_oracle_fuzzed(seed):
+    """The GPU integrate kernel (Pallas interpreter) on random geometry."""
+    import jax.numpy as jnp
+
+    from cudadepthmapintegration_tpu.kernels.integrate_triton import (
+        integrate_triton,
+    )
+    from cudadepthmapintegration_tpu.ops import projection_tables
+
+    grid, views, params = random_scene(seed)
+    t = projection_tables(grid, views, np.float32)
+    d = np.stack([v.depth for v in views]).astype(np.float32)
+    got = integrate_triton(
+        jnp.zeros(grid.volume_shape, jnp.float32),
+        *[jnp.asarray(a) for a in (t.tx, t.ty, t.tz, t.tc, d)],
+        h=d.shape[1], w=d.shape[2], thick=params.thick, rho=params.rho,
+        eta=params.eta, delta=params.delta, interpret=True,
+    )
+    exp = integrate_views_oracle(grid, views, params)
+    mismatch = (np.abs(np.asarray(got) - exp) > 1e-3).mean()
     assert mismatch < 5e-3
 
 

@@ -39,17 +39,3 @@ def test_pipeline_runs_sharded_over_mesh():
     assert result.views_fused == 6
     assert result.mesh.num_triangles > 50
 
-
-def test_pipeline_sharded_pallas_backend():
-    import cudadepthmapintegration_tpu.kernels.integrate_pallas as KP
-
-    KP.INTERPRET = True
-    views = sphere_scene(n_views=4, width=144, height=64, focal=60.0)
-    cfg = config17()
-    cfg.dtype = "float32"
-    cfg.backend = "pallas"
-    mesh = make_mesh(n_z=4)
-    result = ReconstructionPipeline(cfg, mesh=mesh).run(views)
-    grid = VoxelGrid(dims=(17, 17, 17), origin=(-1.63, -1.61, -1.59), spacing=(0.2,) * 3)
-    exp = integrate_views_oracle(grid, views, PARAMS, threshold_best_cost=0.14)
-    assert (np.abs(result.volume - exp.astype(np.float32)) > 1e-3).mean() == 0.0

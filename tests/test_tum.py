@@ -219,12 +219,12 @@ def test_sparse_grid_save_load_roundtrip(tmp_path):
     views = sphere_scene(n_views=3, width=64, height=48, focal=60.0)
     params = RayPotential(thick=0.2, rho=0.8, eta=0.03, delta=0.8)
     g = SparseTSDFGrid(voxel_size=0.1, params=params, pixel_stride=2,
-                       with_color=True, gather_backend="xla")
+                       with_color=True)
     for v in views:
         g.integrate_frame(v)
     path = str(tmp_path / "g.npz")
     g.save(path, extra={"next_index": 7})
-    g2, extra = SparseTSDFGrid.load(path, gather_backend="xla")
+    g2, extra = SparseTSDFGrid.load(path)
     assert extra == {"next_index": 7}
     assert g2.block_map == g.block_map
     assert g2.frames_fused == g.frames_fused
