@@ -265,7 +265,7 @@ def phase_oracle(run: Run) -> None:
             exp = integrate_views_oracle(grid, views, params,
                                          threshold_best_cost=thr)
             integ = fuse_integrator(grid, views, params, thr)
-            used_kernel &= integ._use_kernel
+            used_kernel &= integ.use_kernel
             fk = flip_fraction(integ.result(), exp)
             fx = flip_fraction(np.asarray(fuse_xla(grid, views, params, thr)),
                                exp)

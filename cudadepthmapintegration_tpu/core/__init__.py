@@ -1,6 +1,11 @@
 """Core geometry and data model: grid, camera, ray potential, views."""
 
-from .camera import Camera, compose_projection, round_half_away
+from .camera import (
+    Camera,
+    compose_projection,
+    round_half_away,
+    round_half_away_jnp,
+)
 from .grid import VoxelGrid, are_vectors_orthogonal, grid_matrix_from_axes
 from .ray_potential import RayPotential, ray_potential_jnp, ray_potential_np
 from .view import DepthMapView, apply_best_cost_threshold
@@ -17,4 +22,5 @@ __all__ = [
     "ray_potential_jnp",
     "ray_potential_np",
     "round_half_away",
+    "round_half_away_jnp",
 ]

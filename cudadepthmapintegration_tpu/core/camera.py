@@ -17,9 +17,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 
-__all__ = ["Camera", "round_half_away", "compose_projection"]
+__all__ = ["Camera", "round_half_away", "round_half_away_jnp", "compose_projection"]
 
 
 def round_half_away(x: np.ndarray) -> np.ndarray:
@@ -27,6 +28,11 @@ def round_half_away(x: np.ndarray) -> np.ndarray:
     is half-to-even, which would diverge from the reference on exact .5 hits
     (``CudaReconstruction.cu:187-189`` uses CUDA round())."""
     return np.sign(x) * np.floor(np.abs(x) + 0.5)
+
+
+def round_half_away_jnp(x):
+    """jnp version of :func:`round_half_away` (traced)."""
+    return jnp.sign(x) * jnp.floor(jnp.abs(x) + 0.5)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -70,9 +70,9 @@ def ray_potential_np(
 def ray_potential_jnp(real_distance, depth, thick, rho, eta, delta):
     """jnp version (traced; parameters may be python floats or scalars).
 
-    Branch-free ``where`` chain — identical piecewise regions as the CUDA
-    device function, but vectorized for the VPU instead of per-thread
-    control flow.
+    Branch-free ``where`` chain: the same piecewise regions as the CUDA
+    device function, without per-thread control flow. The XLA path and the
+    GPU kernel both evaluate it.
     """
     diff = real_distance - depth
     a = jnp.abs(diff)

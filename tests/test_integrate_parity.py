@@ -12,7 +12,9 @@ import pytest
 
 from cudadepthmapintegration_tpu.core import DepthMapView, VoxelGrid
 from cudadepthmapintegration_tpu.core import RayPotential
+from cudadepthmapintegration_tpu.kernels import integrate_triton as kernel_mod
 from cudadepthmapintegration_tpu.kernels.integrate_triton import (
+    fits_int32_offsets,
     integrate_triton,
 )
 from cudadepthmapintegration_tpu.ops import (
@@ -224,6 +226,43 @@ def test_integrator_on_cpu_takes_xla_path(dtype):
     integ = TSDFIntegrator(small_grid(), PARAMS, dtype=dtype,
                            view_batch=2).reset()
     integ.integrate(views)
-    assert not integ._use_kernel
+    assert not integ.use_kernel
     assert integ.volume_sweeps == 3  # ceil(5 / 2) XLA chunks
     assert integ.views_fused == 5
+
+
+@pytest.mark.parametrize(
+    "volume_size, n_views, h, w, fits",
+    [
+        (1290**3, 64, 512, 512, True),
+        (1291**3, 64, 512, 512, False),
+        (2**31 - 1, 1, 1080, 1920, True),
+        (512**3, 1035, 1080, 1920, True),
+        (512**3, 1036, 1080, 1920, False),
+    ],
+    ids=["grid_1290", "grid_1291", "grid_max", "views_1035_hd", "views_1036_hd"],
+)
+def test_kernel_int32_offset_limit(volume_size, n_views, h, w, fits):
+    assert fits_int32_offsets(volume_size, n_views, h, w) is fits
+
+
+def test_integrator_falls_back_to_xla_past_offset_limit(monkeypatch):
+    """A call the kernel cannot index takes the XLA path, even where the
+    kernel is selected (on a CPU the kernel call itself would raise)."""
+    views = sphere_scene(n_views=5, width=96, height=64, focal=60.0)
+    grid = small_grid()
+    monkeypatch.setattr(kernel_mod, "MAX_OFFSET", grid.num_cells)
+    integ = TSDFIntegrator(grid, PARAMS, view_batch=2).reset()
+    integ.use_kernel = True
+    got = integ.integrate(views).result()
+    assert integ.volume_sweeps == 3  # ceil(5 / 2) XLA chunks
+    exp = integrate_views_oracle(grid, views, PARAMS)
+    assert flip_fraction(got, exp) <= FLIP_BUDGET
+
+
+def test_integrator_kernel_request_on_cpu_raises():
+    views = sphere_scene(n_views=2, width=96, height=64, focal=60.0)
+    integ = TSDFIntegrator(small_grid(), PARAMS).reset()
+    integ.use_kernel = True
+    with pytest.raises(ValueError, match="interpret"):
+        integ.integrate(views)
